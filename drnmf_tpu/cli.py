@@ -55,9 +55,10 @@ def main(argv=None):
                         "score_audio.m:225; the model is P.862-structured, "
                         "anchor-calibrated, not a bit-exact ITU port)")
     parser.add_argument("--splits", default="valid,test")
-    parser.add_argument("--compile-cache",
-                        default=os.path.expanduser("~/.cache/drnmf_tpu/xla"),
-                        help="persistent XLA compilation cache dir")
+    parser.add_argument("--compile-cache", default=None, metavar="DIR",
+                        help="persistent XLA compilation cache dir (default: "
+                        "$JAX_COMPILATION_CACHE_DIR when set, else "
+                        "<checkout>/.jax_cache)")
     parser.add_argument("--no-compile-cache", action="store_true")
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="write a jax.profiler trace to DIR "
@@ -102,13 +103,6 @@ def main(argv=None):
         splits=splits,
     )
 
-    # persistent XLA compilation cache: repeated CLI invocations (the grid
-    # scripts, rescoring, resumed runs) skip recompiling identical programs
-    if not args.no_compile_cache:
-        from .utils import enable_compile_cache
-
-        enable_compile_cache(args.compile_cache)
-
     # data-parallel training mesh ('auto': every local device when the host
     # has more than one -- the SURVEY.md parallelism table's DP row)
     mesh = None
@@ -149,6 +143,13 @@ def main(argv=None):
             print(f"data-parallel mesh over {n_dp} devices")
     if args.fsdp and mesh is None:
         parser.error("--fsdp requires a data-parallel mesh (--dp > 1)")
+
+    # persistent XLA compilation cache: repeated CLI invocations (the grid
+    # scripts, rescoring, resumed runs) skip recompiling identical programs
+    if not args.no_compile_cache:
+        from .utils import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
 
     from .utils import trace
 

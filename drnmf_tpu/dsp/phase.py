@@ -14,7 +14,7 @@ Behavioral spec (reference, do-not-copy — reimplemented in JAX):
 * ``compute_STFTs(..., flag_unwrap_phase=True)`` (util.py:338-344) applies the
   same hop-phase removal per file before stacking.
 
-TPU-first: the phase ops are pure jnp (``jnp.unwrap`` runs as an on-device
+The phase ops are pure jnp (``jnp.unwrap`` runs as an on-device
 cumsum) over frame-major (..., n_frames, F) spectrograms, jit/vmap-safe.
 """
 
@@ -71,9 +71,7 @@ def aug_stft(x, n_fft: int, hop: int, flag_unwrap_phase: bool = False,
     spec = stft(jnp.asarray(x), n_fft, hop, jnp.asarray(window))  # (T, F)
     if flag_unwrap_phase:
         spec = remove_hop_phase(spec, n_fft, hop)
-    from .stft import from_device_complex
-
-    spec = from_device_complex(spec).T  # (F, T)
+    spec = np.asarray(spec).T  # (F, T)
     return np.concatenate([spec.real, spec.imag], axis=0).astype(np.float32)
 
 
@@ -99,9 +97,7 @@ def iaug_stft(X, f_bins: int, nsrc: int, flag_unwrap_phase: bool = False,
         xs = Xc[isrc * nch * f_bins : (isrc + 1) * nch * f_bins]
         # (nch*F, T) stored channel-major like compute_STFTs -> (nch, F, T)
         xs = xs.reshape(f_bins, nch, n_frames, order="F")
-        from .stft import to_device_complex
-
-        spec = to_device_complex(np.transpose(xs, (1, 2, 0)).astype(np.complex64))
+        spec = jnp.asarray(np.transpose(xs, (1, 2, 0)).astype(np.complex64))
         if flag_unwrap_phase:
             spec = add_hop_phase(spec, n_fft, hop)
         xr = np.asarray(istft(spec, n_fft, hop, jnp.asarray(window)))  # (nch, n)

@@ -9,7 +9,7 @@ emphasis, L6/L2 time aggregation, linear MOS map -- expressed as masked
 fixed-shape array math so a whole pow2 bucket of files runs as ONE vmapped
 device program (SURVEY §2: on-device equivalents, not Python stand-ins).
 
-The host path computes in float64; this one in float32 on the MXU/VPU.
+The host path computes in float64; this one in float32 on the device.
 Measured agreement on synthetic speech+noise pairs is ~1e-3 MOS (pinned by
 tests), far inside the model's own 0.10-MOS anchor calibration error.
 

@@ -2,14 +2,12 @@
 
 The reference parallelized scoring with a MATLAB ``parfor`` file pool
 (score_audio.m:72-98).  The single-chip engine (engine.py) already runs
-each pow2-length bucket as ONE vmapped device program; scoring is now the
-wall-clock bottleneck of a full pipeline run (~200x RT vs ~35,000x for
-enhancement), and it was the one stage with no multi-chip story (VERDICT
-r4 missing #3).  This module shards each bucket's file rows over a mesh
+each pow2-length bucket as ONE vmapped device program.  This module
+shards each bucket's file rows over a mesh
 axis with ``shard_map`` -- embarrassingly parallel like parfor: no
 collectives, each device scores its own files, ONE SPMD program per
-bucket.  On one chip it reduces to the engine; on a pod the slowest stage
-scales with chips.
+bucket.  On one device it reduces to the engine; on several it scales
+with the device count.
 
 Design notes:
 

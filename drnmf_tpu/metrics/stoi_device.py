@@ -4,7 +4,7 @@ Device port of the HOST stage of ``stoi.py`` (resample to 10 kHz, remove
 frames >40 dB below the loudest, overlap-add survivors -- previously scipy
 + numpy per file on a thread pool) fused with its packed device stage, so
 a whole bucket of files runs as one program with no host math at all
-(SURVEY §2: on-device equivalents; VERDICT r2 next #1).
+(SURVEY §2: on-device equivalents).
 
 * Resampling 16 kHz -> 10 kHz is scipy.signal.resample_poly's exact
   polyphase scheme (up=5/down=8, firwin kaiser-5.0 filter of half-length

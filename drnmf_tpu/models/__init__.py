@@ -3,6 +3,7 @@ from .drnmf import (
     init_drnmf_params,
     drnmf_apply,
     drnmf_trainable_mask,
+    flagship,
 )
 from .lstm import LSTMConfig, init_lstm_params, lstm_apply
 from .snmf_enhancer import snmf_infer_irm
@@ -12,6 +13,7 @@ __all__ = [
     "init_drnmf_params",
     "drnmf_apply",
     "drnmf_trainable_mask",
+    "flagship",
     "LSTMConfig",
     "init_lstm_params",
     "lstm_apply",

@@ -1,6 +1,6 @@
 """DR-NMF: deep recurrent NMF by unfolding iterative soft-thresholding.
 
-TPU-native reimplementation of the reference's model stack:
+JAX reimplementation of the reference's model stack:
 
 * the ``SimpleDeepRNN`` recurrent cell (reference custom_layers.py:104-412),
   whose step runs a K-layer-deep unfolded-ISTA stack,
@@ -22,15 +22,14 @@ Architecture (per timestep t, previous top-layer state h_{t-1}):
 i.e. one warm-started ISTA pass ``h <- max(0, h + Dhat^T (x - Dhat h)/alph -
 lam1/alph)`` unrolled K deep (cf. reference ista_ed, enhance.py:402-418).
 
-TPU-first design:
+Design:
 
 * Parameters are a flat dict pytree of *alternate* (log-domain) tensors; the
   effective per-layer matrices are materialized ONCE per forward pass
   (outside the time scan) and the time recurrence is a single ``lax.scan`` --
   arbitrary sequence length without graph rebuilds (the reference had to
   rebuild its Theano graph per maxseq, enhance.py:1185).
-* Batch-major (B, T, F) inputs; the scan carries an (B, 2r) state; every
-  matmul is MXU-shaped.
+* Batch-major (B, T, F) inputs; the scan carries an (B, 2r) state.
 * Masked timesteps (all-features == mask_value, reference Masking layer
   semantics) hold the carried state.
 """
@@ -60,12 +59,6 @@ class DRNMFConfig:
     params_untied: tuple = ("log_D", "log_alph")
     params_trainable: tuple = ("log_D", "log_alph")
     transform_before_irm: Optional[str] = None  # None | 'square'
-    use_pallas: bool = False  # fused VMEM-resident recurrence kernel
-    pallas_interpret: bool = False  # interpreter mode (CPU tests)
-    # 'bfloat16' keeps the recurrence weights bf16-resident in VMEM (halves
-    # the kernel's weight footprint; numerics = XLA's default f32-matmul
-    # lowering, which also runs bf16 MXU passes)
-    pallas_weights_dtype: str = "float32"
     # cell capability flags mirroring SimpleDeepRNN (custom_layers.py:131-168)
     activation: str = "relu"  # relu | tanh | sigmoid | linear
     connect_input_to_layers: bool = True  # x_t fed to every layer k (:366-368)
@@ -74,11 +67,8 @@ class DRNMFConfig:
     dropout_W: float = 0.0  # variational input dropout (get_constants :377-395)
     dropout_U: float = 0.0  # variational recurrent dropout
     # rematerialize the scan step in the backward pass: trades recompute
-    # for not storing per-step intermediates across T timesteps.  Default ON:
-    # with the factored S path the stored (B, T, F) intermediates otherwise
-    # dominate the backward (measured flagship train step on v5e: factored
-    # 14.1 steps/s -> 19.5 with remat, vs 18.2 dense); no effect on
-    # forward-only (inference) programs (measured 32-33k RTF either way).
+    # for not storing per-step intermediates across T timesteps; no effect
+    # on forward-only (inference) programs.
     remat: bool = True
     # what the checkpointed backward is allowed to KEEP from the forward:
     # 'full' recomputes everything per step (min memory, the backward
@@ -88,29 +78,23 @@ class DRNMFConfig:
     # per-step residual (max memory, no recompute); 'auto' (default)
     # resolves per program at trace time from the closed-form residual
     # bound ``scan_residual_bytes``: 'none' when store-all residuals fit
-    # the DRNMF_REMAT_AUTO_BUDGET_BYTES budget (default 4 GB -- a quarter
-    # of a v5e's HBM), else 'full'.  Identical math at every setting
-    # (on-chip flagship profile B=32/T=500, bench.py --profile-train:
-    # full 20.0 ms/step, dots 17.8, none 16.8 with a ~2.3 GB residual
-    # bound -- auto banks the 16% without risking OOM at larger shapes).
-    # Ignored when remat=False.
+    # the DRNMF_REMAT_AUTO_BUDGET_BYTES budget (default 4 GB), else 'full'
+    # -- storing avoids the backward's replay of every step's matmuls
+    # without risking OOM at larger shapes.  Identical math at every
+    # setting.  Ignored when remat=False.
     remat_policy: str = "auto"  # 'auto' | 'none' | 'full' | 'dots'
     # lax.scan unroll factor for the recurrence: >1 replicates the step
     # body so XLA amortizes per-iteration loop overhead and can pipeline
     # across timesteps.  Pure scheduling -- identical math and results at
     # any value; memory grows with the unrolled body.  T need not divide
-    # it (lax.scan handles the remainder).  Default 4: the win is in the
-    # BACKWARD pass (on-chip flagship profile, bench.py --profile-train:
-    # forward scan is flat at 3.8 ms for unroll 1/2/4, but the fused
-    # train step drops 35.6 -> 24.3 -> 20.0 ms; unroll 8 adds only
-    # 1.3 ms more while degrading the forward to 4.6 ms, so 4 is the
-    # default and 8 a config knob).
+    # it (lax.scan handles the remainder).  Default 4, where the gain is
+    # in the BACKWARD pass; larger unrolls grow the forward program.
     scan_unroll: int = 4
     # Batched-T backward (models/batched_grad.py): replace autodiff's
     # through-the-scan parameter-gradient accumulation (per-timestep
-    # matmuls contracting over the 32-row batch -- 1/4-occupied MXU
-    # tiles) with a custom VJP that runs only the sequential delta chain
-    # in the reverse scan and computes every weight gradient as ONE
+    # matmuls contracting over the 32-row batch) with a custom VJP that
+    # runs only the sequential delta chain in the reverse scan and
+    # computes every weight gradient as ONE
     # T*B-contraction matmul.  Identical forward numerics; gradient
     # parity pinned by tests.  Applies to the production path (relu,
     # connect_input, frozen-U fold + factored S); other configurations
@@ -118,10 +102,10 @@ class DRNMFConfig:
     # hidden+delta stacks; the router falls back to remat autodiff when
     # that exceeds DRNMF_BATCHED_GRAD_BUDGET_BYTES (default 4 GB).
     batched_grad: bool = False
-    # TPU matmul precision: 'default' runs the MXU in single-pass bf16
-    # (fastest; measured flagship-model mask delta vs 'highest' is 1.7e-4
-    # max / 2.6e-5 mean on [0,1] masks -- far inside the 0.1 dB SDR parity
-    # budget), 'highest' uses f32-equivalent multi-pass (~5x slower)
+    # matmul precision: 'default' follows jax.default_matmul_precision and
+    # otherwise lets XLA run float32 matmuls in its fastest class (TF32 on
+    # tensor cores on an H100; chip_smoke.py holds the result to the
+    # 0.1 dB SDR parity budget), 'highest' asks for full float32.
     matmul_precision: str = "default"
     # When log_U1/log_Uk are NOT trainable (every shipped reference config:
     # params_trainable is [log_D, log_alph], e.g.
@@ -138,7 +122,7 @@ class DRNMFConfig:
     # matmuls instead of one dense (2r, 2r) one.  Pure reassociation of the
     # same float math (valid ALWAYS, including while D trains; gradients
     # flow through the factors); 2r/F-fold fewer FLOPs and no (2r, 2r) S
-    # materialization.  Dense path kept for A/B and the Pallas kernel.
+    # materialization.  The dense path stays for the tests' A/B.
     factored_S: bool = True
 
     @property
@@ -198,6 +182,29 @@ def init_drnmf_params(config: DRNMFConfig, w_noisy: np.ndarray, key=None) -> dic
         else:
             params[name] = value
     return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def flagship(seed: int = 7654):
+    """The largest model of the reference's paper grid
+    (run_waspaa2017.sh: DR-NMF K=5, 2r=2000 atoms, F=257 from a 512-point
+    STFT): untied, trainable log_D/log_alph and a random unit-norm
+    dictionary drawn from ``seed``.  Returns (config, params).
+
+    The atoms are sparse gamma(0.1) draws, so ||D^T D||_2 stays near 200,
+    below alph=400: each unfolded layer is then a stable ISTA step and
+    every layer is live.  Dense positive atoms are so coherent that
+    ||D^T D||_2 exceeds 1000; the layers then alternate between all-zero
+    and live, and no gradient reaches the lower ones."""
+    config = DRNMFConfig(
+        input_dim=257, r=1000, output_dim=257, K_layers=5,
+        alph=400.0, lam1=1.0,
+        params_untied=("log_D", "log_alph"),
+        params_trainable=("log_D", "log_alph"),
+    )
+    rng = np.random.default_rng(seed)
+    w = rng.gamma(0.1, 1.0, (257, 2000)).astype(np.float32) + 1e-3
+    w /= np.sqrt(np.sum(w**2, axis=0))
+    return config, init_drnmf_params(config, w)
 
 
 def drnmf_trainable_mask(config: DRNMFConfig, params: dict) -> dict:
@@ -421,7 +428,10 @@ def _dropout_mask(key, shape, rate):
 
 
 def _precision(config: DRNMFConfig):
-    return {"default": jax.lax.Precision.DEFAULT,
+    """'default' leaves the choice to ``jax.default_matmul_precision`` (so a
+    reference run under ``highest`` reaches the model's matmuls too);
+    'highest' pins full float32."""
+    return {"default": None,
             "highest": jax.lax.Precision.HIGHEST}[config.matmul_precision]
 
 
@@ -453,9 +463,8 @@ def _scan_hidden(params: dict, config: DRNMFConfig, x: jnp.ndarray,
     Returns hidden states (B, T, 2r), or (B, T, K*2r) with
     ``return_all_hidden``."""
     K = config.K_layers
-    U, S, W, b = _effective_matrices(params, config,
-                                     fold_u=not config.use_pallas,
-                                     factor_s=not config.use_pallas)
+    U, S, W, b = _effective_matrices(params, config, fold_u=True,
+                                     factor_s=True)
     if config.nonnegative:
         h0 = jax.nn.softplus(params["log_h0"])
     else:
@@ -479,29 +488,6 @@ def _scan_hidden(params: dict, config: DRNMFConfig, x: jnp.ndarray,
              and not config.return_all_hidden and not use_dropout)
 
     h_init = jnp.broadcast_to(h0[None, :], (bsz, config.hidden_dim))
-
-    if config.use_pallas and plain:
-        from ..ops.pallas import drnmf_scan_pallas, pallas_scan_supported
-
-        n2r = config.hidden_dim
-        wdt = (jnp.bfloat16 if config.pallas_weights_dtype == "bfloat16"
-               else jnp.float32)
-        # VMEM feasibility gate (documented in drnmf_scan.py): an oversize
-        # weight stack falls back to the XLA scan below instead of failing
-        # in the Mosaic compiler.  Interpret mode (CPU tests) has no VMEM.
-        if config.pallas_interpret or pallas_scan_supported(
-                K, n2r, x.shape[-1], bsz,
-                dtype_bytes=2 if wdt == jnp.bfloat16 else 4):
-            s_stack = (
-                jnp.stack(S) if S else jnp.zeros((1, n2r, n2r), jnp.float32)
-            )
-            return drnmf_scan_pallas(
-                x, step_mask, h_init,
-                U[0].astype(wdt),
-                (U[1] if K > 1 else jnp.zeros_like(U[0])).astype(wdt),
-                s_stack.astype(wdt), jnp.stack(W).astype(wdt), jnp.stack(b),
-                interpret=config.pallas_interpret,
-            )
 
     xT = jnp.swapaxes(x, 0, 1)  # (T, B, F)
     mT = jnp.swapaxes(step_mask, 0, 1)  # (T, B)

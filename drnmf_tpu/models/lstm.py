@@ -77,7 +77,7 @@ def _lstm_layer(wx, wh, b, x, step_mask, unroll=1):
     bsz = x.shape[0]
     xT = jnp.swapaxes(x, 0, 1)
     mT = jnp.swapaxes(step_mask, 0, 1)
-    # hoist the input projection out of the scan: one big MXU matmul
+    # hoist the input projection out of the scan: one big matmul
     zx = jnp.dot(xT, wx, preferred_element_type=jnp.float32) + b  # (T, B, 4N)
 
     def step(carry, inp):

@@ -4,8 +4,8 @@ jnp reimplementation of the reference's numpy oracles (enhance.py:385-456):
 ``ista_ed`` / ``ista_kl`` / ``ista_beta`` run K iterations of nonnegative
 soft-thresholded gradient steps on ``min_H  D_beta(x, W H) + lam1 |H|_1``.
 These serve three roles here, as there: (1) mathematical ground truth for the
-unfolded DR-NMF cell at initialization (tests assert the equivalence), (2) a
-usable standalone inference engine, (3) the fused Pallas kernel's oracle.
+unfolded DR-NMF cell at initialization (tests assert the equivalence), and
+(2) a usable standalone inference engine.
 
 All functions are pure, jit-able, and operate on column-major frame matrices
 ``x: (m, n)``, ``H: (r, n)``, dictionary ``W: (m, r)``.

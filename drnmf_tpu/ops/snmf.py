@@ -1,6 +1,6 @@
 """Sparse NMF with beta-divergence, L1 sparsity, and normalized basis columns.
 
-TPU-native reimplementation of the reference's "well-done" sparse NMF engine
+JAX reimplementation of the reference's "well-done" sparse NMF engine
 (Le Roux, Hershey & Weninger, MERL TR2015-023).  The reference runs these
 multiplicative updates in MATLAB on a CUDA GPU via the Parallel Computing
 Toolbox (reference: sparseNMF/sparse_nmf_gpu.m:1-304, shimmed through a
@@ -20,7 +20,7 @@ Update equations reproduced behaviorally (sparse_nmf_gpu.m:208-298):
 * Frozen subsets via ``w_update_ind`` / ``h_update_ind`` (used to freeze the
   speech dictionary while learning the noise dictionary, and to freeze all of
   W at inference).  Implemented as dense full-width updates followed by a
-  ``where`` select -- no gathers, MXU-shaped matmuls throughout.
+  ``where`` select -- no gathers, full-width matmuls throughout.
 * beta=1 (KL) and beta=0 (IS) and generic beta paths, objective history,
   early stop on relative cost change.
 
@@ -59,10 +59,6 @@ class SNMFParams:
     w_update_ind: Optional[np.ndarray] = None  # bool (r,)
     h_update_ind: Optional[np.ndarray] = None  # bool (r,)
     display: bool = False
-    # experimental: fused Pallas MU kernel (beta=2, all-True h_update_ind
-    # only; see ops/pallas/snmf_mu.py STATUS note -- currently slower than
-    # the XLA core on v5e, kept for kernel iteration)
-    use_pallas: bool = False
 
     def resolved_beta(self) -> float:
         if self.cf == "is":
@@ -265,23 +261,12 @@ def sparse_nmf(v, params: SNMFParams, key=None,
         key = jax.random.PRNGKey(int(params.random_seed))
     v = jnp.asarray(v, jnp.float32)
     w0, h0, sparsity, w_mask, h_mask = _prepare(v.shape, params, key)
-    beta = params.resolved_beta()
-    if (params.use_pallas and beta == 2.0
-            and bool(np.all(np.asarray(h_mask)))
-            and np.asarray(params.sparsity).size == 1):
-        from .pallas.snmf_mu import sparse_nmf_ed_pallas
-
-        w, h, divs, costs, n_iter = sparse_nmf_ed_pallas(
-            v, w0, h0, float(np.asarray(sparsity).reshape(-1)[0]), w_mask,
-            max_iter=int(params.max_iter), conv_eps=float(params.conv_eps),
-        )
-    else:
-        w, h, divs, costs, n_iter = _sparse_nmf_core(
-            v, w0, h0, sparsity, w_mask, h_mask,
-            beta=beta,
-            max_iter=int(params.max_iter),
-            conv_eps=float(params.conv_eps),
-        )
+    w, h, divs, costs, n_iter = _sparse_nmf_core(
+        v, w0, h0, sparsity, w_mask, h_mask,
+        beta=params.resolved_beta(),
+        max_iter=int(params.max_iter),
+        conv_eps=float(params.conv_eps),
+    )
     n_iter = int(n_iter)
     if device_output:
         jax.block_until_ready(w)
@@ -302,8 +287,8 @@ def sparse_nmf(v, params: SNMFParams, key=None,
 
 def default_frame_chunk(r: int, max_frames_at_r200: int = 700_000) -> int:
     """Reference memory heuristic (snmf.py:33-36): frames per chunk scales as
-    1/r, anchored at 700k frames for r=200 on a 12 GB device.  v5e HBM is
-    16 GB, so the same anchor is a safe default."""
+    1/r, anchored at 700k frames for r=200 on a 12 GB device.  The anchor is
+    kept as is; any larger device holds such a chunk."""
     return int(float(max_frames_at_r200) * (200.0 / float(r)))
 
 

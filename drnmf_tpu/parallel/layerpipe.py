@@ -9,7 +9,7 @@ stacked per-layer factors enter the pipeline body sharded over 'pp'
 its own layer's (F, 2r) dictionary factors and bias -- the only
 parallel axis that divides the weight working set by depth K rather
 than by hidden width or batch -- and COMPUTES only that layer;
-activations hand forward over ICI with ``ppermute``.
+activations hand forward between devices with ``ppermute``.
 
 The cross-time feedback (layer K-1's masked-held state at t-1 feeds every
 layer's U term at t, enhance.py:162-204) makes this a RING pipeline: a

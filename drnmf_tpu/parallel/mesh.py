@@ -2,15 +2,16 @@
 
 The reference is strictly single-GPU (SURVEY.md section 2: no DP/TP/PP, the
 only parallelism is NMF frame chunking and a MATLAB parfor scoring pool).
-The TPU-native scale-out story:
+The scale-out story:
 
 * **Data parallel training**: shard the (B, T, F) batch over a 'dp' mesh
-  axis; parameters replicate; XLA inserts the gradient ``psum`` over ICI.
+  axis; parameters replicate; XLA inserts the gradient ``psum`` (NCCL
+  all-reduce across GPUs).
 * **Sharded sparse NMF**: frames (columns of ``v``) shard over 'dp'.  The H
   update is embarrassingly frame-parallel; the W update needs global
   ``v h^T``-style (m, r) statistics, which are *additive over frames* --
   each shard computes its local statistics and a ``psum`` over the axis
-  produces identical dictionaries everywhere (the TPU equivalent of the
+  produces identical dictionaries everywhere (the mesh equivalent of the
   reference's warm-started sequential chunk loop, snmf.py:30-75, but exact
   instead of approximate: all frames participate in every update).
 * Objective values are psum-reduced the same way, so convergence checks are
@@ -47,10 +48,11 @@ def make_mesh(n_devices=None, axis_name="dp"):
 def make_mesh_2d(n_dp, n_tp, axis_names=("dp", "tp")):
     """2-D device mesh for combined data x tensor parallelism.
 
-    The tp axis is the FASTER-varying one: on real hardware consecutive
-    ``jax.devices()`` entries are ICI neighbors, so each tp subring's
-    per-unfold psums ride the shortest links while dp gradient psums cross
-    the slower dimension once per step."""
+    The tp axis is the faster-varying one, so each tp group is
+    consecutive ``jax.devices()`` entries.  On one host the cards are
+    joined all to all by NVLink at one rate, so the layout follows the
+    algorithm alone: tp psums run K times per time step inside the
+    recurrence, dp gradient psums once per step."""
     devices = jax.devices()
     if len(devices) < n_dp * n_tp:
         raise ValueError(
@@ -85,9 +87,9 @@ def fsdp_param_sharding(value, mesh, axis_name="dp", min_elems=1 << 16):
 
     Sharding params (and, by the same rule, their Adam moments) over dp cuts
     per-device HBM for weights + optimizer state by ~1/dp -- the enabler
-    for dictionaries that outgrow one chip (at 2r=50k the flagship's two
-    frozen (2r, 2r) U tensors alone are ~20 GB, past a v5e's 16 GB; see
-    ``utils/memplan.py`` for the closed-form per-layout accounting).
+    for dictionaries that outgrow one card (at 2r=50k the two frozen
+    (2r, 2r) U tensors alone are ~20 GB before activations and Adam state;
+    see ``utils/memplan.py`` for the closed-form per-layout accounting).
     Exact: XLA all-gathers params where used and reduce-scatters grads, the
     same sum as the replicated layout in a different order.
     """

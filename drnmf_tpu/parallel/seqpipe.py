@@ -2,11 +2,11 @@
 
 SURVEY.md section 2 (parallelism table): the reference handled long sequences
 by *chunking* into maxlen windows, losing recurrent state at chunk
-boundaries (reshape_and_pad_stacks, audio_dataset.py:127-168).  The TPU
+boundaries (reshape_and_pad_stacks, audio_dataset.py:127-168).  The DR-NMF
 recurrence is O(1)-state (one (2r,) vector per sequence), so exact sequence
 parallelism is a pipeline: shard the time axis into P contiguous chunks
 (one per device along the 'sp' mesh axis) and hand the carried state of
-chunk p to chunk p+1 over ICI with ``ppermute``.
+chunk p to chunk p+1 between devices with ``ppermute``.
 
 A single sequence gives no overlap (the recurrence is truly sequential), so
 the batch is split into G groups and processed as a classic wavefront
@@ -17,7 +17,7 @@ near-linear speedup for long-T batches whose (B, T, F) tensors would not fit
 one chip's HBM.
 
 Everything runs inside one ``shard_map``-ed jit program: the wave loop is a
-``lax.fori_loop``, the carry handoff is a ``lax.ppermute`` over ICI, and
+``lax.fori_loop``, the carry handoff is a ``lax.ppermute`` between devices, and
 invalid (bubble) waves are masked with ``jnp.where`` -- no host round trips.
 """
 

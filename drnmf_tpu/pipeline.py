@@ -282,7 +282,7 @@ def run_unfolded_snmf(params_model, params_data, folder_exp, path_dicts=None,
                       mesh=None):
     """The 'unfolded_snmf' branch of the reference driver
     (enhance.py:933-1236).  ``mesh``: optional jax Mesh with a 'dp' axis --
-    training batches shard over it (gradients psum over ICI)."""
+    training batches shard over it (gradients psum across devices)."""
     ensure_experiment_dirs(folder_exp)
     if path_dicts is None:
         path_dicts = os.path.join(folder_exp, "dicts") + "/"
@@ -595,8 +595,8 @@ def run_snmf(params_model, params_data, folder_exp, path_dicts=None,
             ds = datasets[split]
             # route through the bucketed batch reconstruction
             # (reconstruct_split) instead of a per-utterance Python loop --
-            # the thousands-of-tiny-dispatches pattern it was built to kill
-            # (VERDICT r2 weak #3).  The padded (B, T, F) irm tensor is the
+            # the thousands-of-tiny-dispatches pattern it was built to
+            # kill.  The padded (B, T, F) irm tensor is the
             # same shape as the split's x tensor (maxlen=None: one row per
             # file), filled from the frame stack by fidx range.
             timer = StageTimer()

@@ -35,7 +35,7 @@ def load_checkpoint(path):
 
 def save_checkpoint_orbax(path, params, meta=None):
     """Orbax checkpoint of a parameter pytree (SURVEY.md section 5: the
-    TPU-native replacement for Keras HDF5 weights when parameters are sharded
+    replacement for Keras HDF5 weights when parameters are sharded
     jax.Arrays -- orbax writes each shard from its owning host)."""
     import orbax.checkpoint as ocp
 

@@ -1,6 +1,7 @@
 from .config import config_hash, load_yaml, dump_yaml, ensure_experiment_dirs
 from .cache import snmf_cache_path, save_snmf, load_snmf
-from .profiling import StageTimer, trace, device_sync, enable_compile_cache
+from .profiling import (StageTimer, trace, device_sync, enable_compile_cache,
+                        default_compile_cache_dir)
 
 __all__ = [
     "config_hash",
@@ -14,4 +15,5 @@ __all__ = [
     "trace",
     "device_sync",
     "enable_compile_cache",
+    "default_compile_cache_dir",
 ]

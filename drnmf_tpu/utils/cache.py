@@ -17,8 +17,10 @@ def snmf_cache_path(params_snmf, path_dicts="", prefix="noisy"):
     cfg = {
         k: v
         for k, v in asdict(params_snmf).items()
+        # execution knobs != identity ("use_pallas" was one; still excluded
+        # so configs that set it hash as before)
         if k not in ("init_w", "init_h", "w_update_ind", "h_update_ind",
-                     "display", "use_pallas")  # execution knobs != identity
+                     "display", "use_pallas")
     }
     h = config_hash(cfg)
     sparsity = float(np.asarray(params_snmf.sparsity).ravel()[0])

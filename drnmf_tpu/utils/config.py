@@ -1,5 +1,8 @@
 """Config system: YAML configs + md5-of-sorted-json artifact hashing.
 
+PyYAML is optional: without it configs are written as JSON, which is valid
+YAML, and JSON-formatted configs still load.
+
 Reproduces the reference's experiment registry (enhance.py:60-78, 679-714):
 every artifact (dictionary, model, history, scores) is named by the md5 hash
 of its sorted-JSON config, so reruns are idempotent and configs are
@@ -12,7 +15,6 @@ import json
 import os
 
 import numpy as np
-import yaml
 
 
 class _NumpyEncoder(json.JSONEncoder):
@@ -34,13 +36,33 @@ def config_hash(config: dict, exclude=()) -> str:
 
 
 def load_yaml(path):
+    """Read a YAML config with PyYAML; without PyYAML, read it as JSON
+    (JSON is valid YAML, and :func:`dump_yaml` writes JSON then)."""
     with open(path) as f:
-        return yaml.safe_load(f.read())
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError as e:
+            raise ImportError(
+                f"{path} is not JSON and PyYAML is not installed; install "
+                "pyyaml (pip install 'drnmf-tpu[yaml]') to read it") from e
+    return yaml.safe_load(text)
 
 
 def dump_yaml(obj, path):
+    """Write a config as YAML, or as JSON (valid YAML) without PyYAML."""
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
     with open(path, "w") as f:
-        yaml.safe_dump(obj, f)
+        if yaml is None:
+            json.dump(obj, f, indent=1, sort_keys=True, cls=_NumpyEncoder)
+        else:
+            yaml.safe_dump(obj, f)
 
 
 def ensure_experiment_dirs(folder_exp):

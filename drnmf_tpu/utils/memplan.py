@@ -1,9 +1,9 @@
 """Static per-device HBM planning for DR-NMF training layouts.
 
 The reference never needed this (single GPU, r<=1000 fits anywhere:
-enhance.py:147, run_waspaa2017.sh grid).  On TPU the question "does this
+enhance.py:147, run_waspaa2017.sh grid).  The question "does this
 dictionary size train on this mesh?" is answerable in closed form BEFORE
-claiming chips: parameter shapes follow ``init_drnmf_params`` exactly
+claiming devices: parameter shapes follow ``init_drnmf_params`` exactly
 (pinned by test), Adam keeps two moments per TRAINABLE tensor
 (``train/losses.py`` optimizer via optax.multi_transform -- frozen params
 carry no optimizer state), and the FSDP layout divides every tensor whose
@@ -14,7 +14,8 @@ Example (the reason --fsdp exists): the flagship K=5 untied-D model at
 10x the paper's dictionary (r=10_000, F=257) holds 3.3 GB of params +
 Adam state, 3.0 GB of it the two frozen (2r, 2r) U tensors; under FSDP
 on dp=8 the per-device total drops to 426 MB.  At 2r=50k the U tensors
-alone are ~20 GB -- past a v5e's 16 GB, trainable only with this layout.
+alone are ~20 GB, and the whole model then trains only with this layout
+once activations and Adam state are counted on top.
 
 Usage:
     python -m drnmf_tpu.utils.memplan -c params_unfolded_snmf.yaml \

@@ -1,7 +1,6 @@
 #!/usr/bin/env python
 """Batch-size scaling study: does the high-throughput regime reach the
-parity schedule's quality? (VERDICT r2 next #8; SEEDED round 4 per
-VERDICT r3 next #4.)
+parity schedule's quality?
 
 Trains the SAME grid model (DR-NMF K=5, r=100) on the same corpus and the
 same SNMF dictionary at the reference's parity batch (32, lr 1e-3 --

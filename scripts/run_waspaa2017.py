@@ -147,8 +147,8 @@ def paper_grid():
     """The 10-model grid at the PAPER training schedule (epochs 400, or
     1200 for the K=5/r=1000 flagship -- run_waspaa2017.sh:14-35) with
     elastic resume on.  SNMF dictionary iterations stay at the demo 200
-    (the dictionaries that initialized every model trained in this tree;
-    RESULTS.md notes the deviation), so `--demo` runs seed `--paper` runs:
+    (the dictionaries that initialized every model trained in this tree,
+    a deviation from the paper), so `--demo` runs seed `--paper` runs:
     same dictionaries, and seed_paper_runs_from_demo() extends a finished
     40-epoch demo model to the paper schedule via the resume state instead
     of retraining from scratch."""

@@ -1,7 +1,6 @@
 """Keras-HDF5 weight import: write a checkpoint in the reference's exact
 save_weights layout, import it, and run the model."""
 
-import h5py
 import numpy as np
 
 from drnmf_tpu.models import (
@@ -20,7 +19,10 @@ from drnmf_tpu.utils.convert import (
 
 def write_keras_h5(path, layers):
     """layers: list of (layer_name, [(weight_name, array), ...]) in the
-    Keras 2.0.4 save_weights layout."""
+    Keras 2.0.4 save_weights layout.  h5py (the optional [hdf5] extra) is
+    imported here, so the module collects on a machine without it."""
+    import h5py
+
     with h5py.File(path, "w") as f:
         f.attrs["layer_names"] = np.array(
             [name.encode() for name, _ in layers]
@@ -205,7 +207,7 @@ def test_import_lstm_deep_stack(tmp_path, rng):
 
 def test_validate_import_catches_transpose_and_mismatch(rng):
     """Shape validation names transposed kernels and key-set mismatches
-    (the silent failure modes of a layout change -- VERDICT r2 next #9)."""
+    (the silent failure modes of a layout change)."""
     import pytest
     from drnmf_tpu.utils.convert import (
         validate_drnmf_import, validate_lstm_import)
@@ -258,8 +260,8 @@ def test_lstm_cell_matches_real_keras(rng):
     """Cross-check of the Keras-2.0.4 LSTM cell semantics this framework
     reimplements (models/lstm.py; gate order i,f,c,o in the packed kernel,
     packed-bias layout, carry recurrence) against a REAL Keras LSTM
-    (VERDICT r2 next #9: the migration claim should rest on more than a
-    hand-built fixture).  The installed Keras 3 defaults differ from 2.0.4
+    (the migration claim should rest on more than a hand-built
+    fixture).  The installed Keras 3 defaults differ from 2.0.4
     only in the recurrent activation (hard_sigmoid slope 1/6 vs 0.2), so
     the 2.0.4 hard_sigmoid is passed explicitly; everything else -- the
     weight layout import_lstm_keras_weights maps -- is validated by exact

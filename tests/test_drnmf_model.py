@@ -1,7 +1,8 @@
 """DR-NMF model tests.
 
-Key oracle: a plain-numpy transcription of the reference cell semantics
-(custom_layers.py:343-375 step + enhance.py:139-206 parameter maps), and the
+Key oracle: the plain-numpy transcription of the reference cell semantics
+in drnmf_tpu/reference.py (custom_layers.py:343-375 step + enhance.py:139-206
+parameter maps, dense U and S), and the
 relationship that layers k>=2 of the unfolded cell at initialization perform
 *exact* ISTA steps (enhance.py:402-418) under the SNMF dictionary.
 """
@@ -15,6 +16,7 @@ from drnmf_tpu.models import (
     drnmf_apply,
     drnmf_trainable_mask,
 )
+from drnmf_tpu.reference import numpy_forward
 
 EPS = 1e-7
 
@@ -22,53 +24,6 @@ EPS = 1e-7
 def make_dict(rng, f, r2):
     w = rng.uniform(0.05, 1.0, (f, r2)).astype(np.float32)
     return w / np.sqrt(np.sum(w**2, axis=0))
-
-
-def numpy_forward(params, config, x):
-    """Numpy transcription of the reference forward pass (behavioral spec).
-
-    x: (T, F).  Returns (hidden (T, 2r), irm (T, F))."""
-    K = config.K_layers
-    p = {k: np.asarray(v, np.float64) for k, v in params.items()}
-
-    def name(base, k):
-        return f"{base}_{k}" if base in config.params_untied else base
-
-    def dhat(k):
-        d = np.exp(p[name("log_D", k)])
-        return d / np.sqrt(np.sum(d**2, axis=0, keepdims=True))
-
-    U = [np.exp(p["log_U1"]).T] + [np.exp(p["log_Uk"]).T] * (K - 1)
-    n2r = config.hidden_dim
-    S = {}
-    for k in range(1, K):
-        dk = dhat(k)
-        alph = np.exp(p[name("log_alph", k)])
-        S[k] = (np.eye(n2r) - (dk / alph).T @ dk).T
-    W = [dhat(k) / np.exp(p[name("log_alph", k)]) for k in range(K)]
-    b = [
-        -np.ones(n2r) * np.exp(p[name("log_lam1", k)]) / np.exp(p[name("log_alph", k)])
-        for k in range(K)
-    ]
-
-    h = np.log(1 + np.exp(p["log_h0"]))  # softplus
-    T = x.shape[0]
-    hs = np.zeros((T, n2r))
-    for t in range(T):
-        hidden = None
-        for k in range(K):
-            pre = h @ U[k]
-            if k > 0:
-                pre = pre + hidden @ S[k]
-            pre = pre + x[t] @ W[k]
-            hidden = np.maximum(0.0, pre + b[k])
-        h = hidden
-        hs[t] = h
-
-    clean = hs[:, : config.r] @ np.exp(p["log_W_clean"])
-    noise = hs[:, config.r :] @ np.exp(p["log_W_noise"])
-    irm = np.exp(np.log(EPS + clean) - np.log(EPS + clean + noise))
-    return hs, irm
 
 
 @pytest.mark.parametrize("untied", [(), ("log_D", "log_alph")])
@@ -86,6 +41,24 @@ def test_forward_matches_numpy_transcription(rng, untied):
     hs_ref, irm_ref = numpy_forward(params, config, x[0])
     np.testing.assert_allclose(np.asarray(hidden_jax)[0], hs_ref, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(np.asarray(irm_jax)[0], irm_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5])
+def test_reference_forward_matches_drnmf_apply(rng, K):
+    """The production path (frozen-U fold, factored S) over a batch equals
+    the dense float64 reference for every depth, K=5 being the flagship's."""
+    f, r, T = 33, 8, 10
+    config = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=K,
+                         alph=10.0, lam1=0.5)
+    params = init_drnmf_params(config, make_dict(rng, f, 2 * r))
+    x = rng.uniform(0.0, 2.0, (3, T, f)).astype(np.float32)
+    irm, hidden, _, _ = drnmf_apply(params, config, x, return_parts=True)
+    hs_ref, irm_ref = numpy_forward(params, config, x)
+    assert hs_ref.shape == (3, T, 2 * r) and irm_ref.shape == (3, T, f)
+    np.testing.assert_allclose(np.asarray(hidden), hs_ref, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(irm), irm_ref, rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_layers_after_first_are_exact_ista_steps(rng):

@@ -1,9 +1,10 @@
 """DSP core tests: STFT/iSTFT parity with the reference's conventions.
 
 The reference's only numeric oracle here is the STFT->iSTFT round-trip NMSE
-(~1e-7, test_audio_dataset.py:83).  We additionally transcribe the exact
-reference pipeline (librosa-0.5.1-era framing + istft_noDiv overlap-add) in
-plain numpy as a golden fixture and compare frame-for-frame.
+(~1e-7, test_audio_dataset.py:83).  We additionally compare frame-for-frame
+with the plain numpy transcription of the exact reference pipeline
+(librosa-0.5.1-era framing + istft_noDiv overlap-add) in
+drnmf_tpu/reference.py.
 """
 
 import numpy as np
@@ -17,36 +18,7 @@ from drnmf_tpu.dsp import (
     n_frames_for_length,
 )
 from drnmf_tpu.dsp.stft import pad_signal, stft_frames, padded_length
-
-
-def ref_stft(x, n_fft, hop, window):
-    """Numpy transcription of the reference STFT semantics (util.py:171-201):
-    pad to hop multiple, pad n_fft both edges, frame left-aligned, window,
-    rFFT.  Returns (F, n_frames) like the reference."""
-    nsampl = len(x)
-    n_blocks = int(np.ceil(nsampl / hop))
-    x = np.concatenate([np.zeros(n_fft), x, np.zeros(n_blocks * hop - nsampl), np.zeros(n_fft)])
-    n_frames = 1 + (len(x) - n_fft) // hop
-    out = np.empty((n_fft // 2 + 1, n_frames), dtype=np.complex64)
-    for i in range(n_frames):
-        fr = x[i * hop : i * hop + n_fft] * window
-        out[:, i] = np.fft.rfft(fr).astype(np.complex64)
-    return out
-
-
-def ref_istft(spec, n_fft, hop, window, nsampl=None):
-    """Numpy transcription of istft_noDiv + istft_mc trimming
-    (util.py:48-169, 203-226)."""
-    syn = window * (2.0 / (n_fft / hop))
-    n_frames = spec.shape[1]
-    y = np.zeros(n_fft + hop * (n_frames - 1), dtype=np.float64)
-    for i in range(n_frames):
-        y[i * hop : i * hop + n_fft] += syn * np.fft.irfft(spec[:, i], n=n_fft).real
-    y = y[: len(y) - n_fft]  # trim n_fft from end
-    y = y[n_fft:]  # trim n_fft from start
-    if nsampl is not None:
-        y = y[:nsampl]
-    return y.astype(np.float32)
+from drnmf_tpu.reference import ref_istft, ref_stft
 
 
 @pytest.mark.parametrize("n_fft,hop", [(512, 128), (320, 160), (1024, 512)])
@@ -182,24 +154,28 @@ def test_aug_stft_time_domain_roundtrip(rng, unwrap):
     assert nmse < (1e-4 if unwrap else 1e-6)
 
 
-def test_matmul_dft_matches_fft(rng):
-    """MXU matmul-DFT path == FFT path to float32 precision (both
-    directions; the TPU default path)."""
+def test_reference_enhance_path_matches_make_enhancer(rng):
+    """The whole offline path -- STFT, recurrence, ratio mask, iSTFT --
+    against the float64 reference (dense U and S, per-frame FFTs and
+    overlap-add) at a small width."""
     import jax.numpy as jnp
-    from drnmf_tpu.dsp.stft import stft_frames, istft_frames, pad_signal
-    from drnmf_tpu.dsp import sqrt_hann_periodic
+    from drnmf_tpu.enhance import make_enhancer
+    from drnmf_tpu.models import DRNMFConfig, init_drnmf_params
+    from drnmf_tpu.reference import numpy_enhance
 
-    n_fft, hop = 256, 64
-    w = jnp.asarray(sqrt_hann_periodic(n_fft))
-    x = pad_signal(jnp.asarray(rng.standard_normal((2, 3000)).astype(np.float32)),
-                   n_fft, hop)
-    s_fft = stft_frames(x, w, n_fft, hop, method="fft")
-    s_mm = stft_frames(x, w, n_fft, hop, method="matmul")
-    scale = float(jnp.abs(s_fft).max())
-    assert float(jnp.abs(s_mm - s_fft).max()) / scale < 1e-5
-    y_fft = istft_frames(s_fft, w, n_fft, hop, method="fft")
-    y_mm = istft_frames(s_fft, w, n_fft, hop, method="matmul")
-    assert float(jnp.abs(y_mm - y_fft).max()) < 1e-5
+    n_fft, hop, r = 64, 16, 4
+    f = n_fft // 2 + 1
+    w = rng.uniform(0.05, 1.0, (f, 2 * r)).astype(np.float32)
+    w /= np.sqrt(np.sum(w**2, axis=0))
+    config = DRNMFConfig(input_dim=f, r=r, output_dim=f, K_layers=3,
+                         alph=10.0, lam1=0.5)
+    params = init_drnmf_params(config, w)
+    x = (0.3 * rng.standard_normal((2, 1500))).astype(np.float32)
+    _, y_ref = numpy_enhance(params, config, x, n_fft, hop)
+    out = np.asarray(make_enhancer(config, n_fft, hop)(
+        params, pad_signal(jnp.asarray(x), n_fft, hop)))
+    np.testing.assert_allclose(out[:, n_fft : n_fft + 1500], y_ref,
+                               rtol=0, atol=1e-5)
 
 
 def test_stft_istft_single_block_signal(rng):

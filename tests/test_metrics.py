@@ -458,7 +458,7 @@ def test_engine_spurious_delay_guard(rng):
 def test_engine_alignment_guard(rng):
     """A deliberately shifted estimate is detected (nonzero delay) and
     re-scored after compensation, landing near the aligned scores
-    (VERDICT r2 next #4: misalignment must not silently tank metrics)."""
+    (misalignment must not silently tank metrics)."""
     from drnmf_tpu.metrics.engine import score_all_packed
 
     ref = _speechlike(rng, 20000)
@@ -518,7 +518,7 @@ def _istft_simple(spec, n=512, hop=256, length=None):
 
 
 def test_pesq_mask_distortion_anchor_family(rng):
-    """Second PESQ anchor family (VERDICT r2 next #4): mask-style
+    """Second PESQ anchor family: mask-style
     distortions -- additive musical noise (isolated random time-frequency
     atoms) and time-varying spectral deletion (randomly gated spectrogram
     bins) -- the distortion class produced by mask-based enhancement,
@@ -783,8 +783,8 @@ def test_engine_full_alignment_piecewise(rng):
 def test_engine_constant_compensation_stays_on_device(rng, monkeypatch):
     """A fully-shifted corpus is compensated WITHOUT repacking: the
     constant-delay re-pass reuses the resident device buffers with
-    adjusted unpack offsets (VERDICT r3 next #8 -- round 3 re-scored
-    shifted pairs through the per-file host path).  pack_pair must run
+    adjusted unpack offsets, not through a per-file host path.  pack_pair
+    must run
     exactly once per bucket."""
     import drnmf_tpu.metrics.engine as eng
 
@@ -836,7 +836,7 @@ def test_scoring_align_full_passthrough(rng, tmp_path):
 
 
 def test_pesq_reverberation_anchor_family(rng):
-    """Third PESQ anchor family (VERDICT r3 next #7): reverberation /
+    """Third PESQ anchor family: reverberation /
     time-smearing -- convolution with exponentially-decaying noise RIRs
     (direct path at t=0, so the pair stays sample-aligned) of increasing
     T60 and wet level.  This is the remaining distortion class mask-based
@@ -972,7 +972,7 @@ def test_sharded_engine_matches_single_device(rng):
 
 
 def test_pesq_mnru_clip_dropout_anchor_families(rng):
-    """Fourth/fifth/sixth PESQ anchor families (VERDICT r4 next #5):
+    """Fourth/fifth/sixth PESQ anchor families:
     MNRU-style multiplicative noise (P.862's own reference degradation,
     y = x(1 + 10^(-Q/20) n)), amplitude clipping (harmonic-distortion
     additions), and packet-loss dropouts (20 ms frame deletions).  Each

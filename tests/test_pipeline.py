@@ -127,7 +127,7 @@ def test_cli_smoke(setup, tmp_path):
     dump_yaml(cfg, c_path)
     dump_yaml(params_data, d_path)
     main(["-c", c_path, "-d", d_path, "--exp-dir", folder_exp,
-          "--no-score", "-q"])
+          "--no-score", "-q", "--no-compile-cache"])
 
 
 def test_reporting(setup):
@@ -434,3 +434,29 @@ def test_unfolded_snmf_fsdp_composes_with_2d_mesh(setup, tmp_path):
     overall, _ = results["valid"]
     assert overall.shape == (1, 6)
     assert np.all(np.isfinite(overall[:, [0, 1, 2, 3, 5]]))
+
+
+@pytest.mark.parametrize("flags,expect", [
+    ([], [None]),  # default: $JAX_COMPILATION_CACHE_DIR, else the checkout's
+    (["--compile-cache", "CACHE"], ["CACHE"]),
+    (["--no-compile-cache"], []),
+])
+def test_cli_compile_cache_choice(tmp_path, monkeypatch, flags, expect):
+    """The CLI hands enable_compile_cache no directory by default (so the
+    env-or-checkout rule decides), an explicit --compile-cache verbatim,
+    and nothing with --no-compile-cache."""
+    import drnmf_tpu.utils
+    from drnmf_tpu import cli
+    from drnmf_tpu.utils import dump_yaml
+
+    seen = []
+    monkeypatch.setattr(drnmf_tpu.utils, "enable_compile_cache", seen.append)
+    monkeypatch.setattr(cli.pipeline, "run_unfolded_snmf",
+                        lambda *a, **k: None)
+    cfg = str(tmp_path / "params_unfolded_snmf_x.yaml")
+    data = str(tmp_path / "params_data.yaml")
+    dump_yaml(dict(MODEL_SMALL), cfg)
+    dump_yaml({}, data)
+    flags = [str(tmp_path / f) if f == "CACHE" else f for f in flags]
+    cli.main(["-c", cfg, "-d", data, "--dp", "1", "-q", *flags])
+    assert seen == [str(tmp_path / e) if e == "CACHE" else e for e in expect]

@@ -1,7 +1,8 @@
 """Sparse NMF engine tests.
 
-Golden fixture: a plain-numpy transcription of the reference MU equations
-(sparseNMF/sparse_nmf_gpu.m:208-298) run from identical initialization; the
+Golden fixture: the plain-numpy transcription of the reference MU equations
+(sparseNMF/sparse_nmf_gpu.m:208-298) in drnmf_tpu/reference.py, run from
+identical initialization; the
 JAX engine must match it to float32 tolerance for beta in {0, 1, 2}.
 """
 
@@ -9,97 +10,7 @@ import numpy as np
 import pytest
 
 from drnmf_tpu.ops import SNMFParams, sparse_nmf, sparse_nmf_chunked
-
-FLR = 1e-9
-
-
-def numpy_sparse_nmf(v, w, h, beta, sparsity, max_iter, w_ind=None, h_ind=None,
-                     conv_eps=0.0):
-    """Numpy transcription of the reference MU loop (behavioral spec)."""
-    v = v.astype(np.float64)
-    w = w.astype(np.float64).copy()
-    h = h.astype(np.float64).copy()
-    r = w.shape[1]
-    if w_ind is None:
-        w_ind = np.ones(r, bool)
-    if h_ind is None:
-        h_ind = np.ones(r, bool)
-    sparsity = np.broadcast_to(np.asarray(sparsity, np.float64), h.shape)
-
-    wn = np.sqrt(np.sum(w**2, axis=0))
-    w = w / wn
-    h = h * wn[:, None]
-
-    if beta != 2:
-        v = v.copy()
-        v[v == 0] = v[v > 0].min()
-
-    lam = np.maximum(w @ h, FLR)
-    divs, costs = [], []
-    last_cost = np.inf
-    for it in range(max_iter):
-        if h_ind.any():
-            if beta == 1:
-                dph = np.maximum(np.sum(w[:, h_ind], axis=0)[:, None] + sparsity[h_ind], FLR)
-                dmh = w[:, h_ind].T @ (v / lam)
-            elif beta == 2:
-                dph = np.maximum(w[:, h_ind].T @ lam + sparsity[h_ind], FLR)
-                dmh = w[:, h_ind].T @ v
-            else:
-                dph = np.maximum(w[:, h_ind].T @ lam ** (beta - 1) + sparsity[h_ind], FLR)
-                dmh = w[:, h_ind].T @ (v * lam ** (beta - 2))
-            h[h_ind] = h[h_ind] * dmh / dph
-            lam = np.maximum(w @ h, FLR)
-        if w_ind.any():
-            if beta == 1:
-                dpw = np.maximum(
-                    np.sum(h[w_ind], axis=1)[None, :]
-                    + np.sum((v / lam) @ h[w_ind].T * w[:, w_ind], axis=0)[None, :] * w[:, w_ind],
-                    FLR,
-                )
-                dmw = (v / lam) @ h[w_ind].T + np.sum(
-                    np.sum(h[w_ind], axis=1)[None, :] * w[:, w_ind], axis=0
-                )[None, :] * w[:, w_ind]
-            elif beta == 2:
-                dpw = np.maximum(
-                    lam @ h[w_ind].T
-                    + np.sum(v @ h[w_ind].T * w[:, w_ind], axis=0)[None, :] * w[:, w_ind],
-                    FLR,
-                )
-                dmw = v @ h[w_ind].T + np.sum(
-                    lam @ h[w_ind].T * w[:, w_ind], axis=0
-                )[None, :] * w[:, w_ind]
-            else:
-                dpw = np.maximum(
-                    lam ** (beta - 1) @ h[w_ind].T
-                    + np.sum((v * lam ** (beta - 2)) @ h[w_ind].T * w[:, w_ind], axis=0)[None, :]
-                    * w[:, w_ind],
-                    FLR,
-                )
-                dmw = (v * lam ** (beta - 2)) @ h[w_ind].T + np.sum(
-                    lam ** (beta - 1) @ h[w_ind].T * w[:, w_ind], axis=0
-                )[None, :] * w[:, w_ind]
-            w[:, w_ind] = w[:, w_ind] * dmw / dpw
-            w = w / np.sqrt(np.sum(w**2, axis=0))
-            lam = np.maximum(w @ h, FLR)
-
-        if beta == 1:
-            div = np.sum(v * np.log(v / lam) - v + lam)
-        elif beta == 2:
-            div = np.sum((v - lam) ** 2)
-        elif beta == 0:
-            div = np.sum(v / lam - np.log(v / lam) - 1)
-        else:
-            div = np.sum(
-                v**beta + (beta - 1) * lam**beta - beta * v * lam ** (beta - 1)
-            ) / (beta * (beta - 1))
-        cost = div + np.sum(sparsity * h)
-        divs.append(div)
-        costs.append(cost)
-        if it > 0 and conv_eps > 0 and abs(cost - last_cost) / last_cost < conv_eps:
-            break
-        last_cost = cost
-    return w, h, np.array(divs), np.array(costs)
+from drnmf_tpu.reference import numpy_sparse_nmf
 
 
 def _rand_problem(rng, m=12, n=40, r=6):
@@ -118,6 +29,26 @@ def test_mu_parity_with_reference_equations(rng, cf, beta):
     np.testing.assert_allclose(res.w, w_ref, rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(res.h, h_ref, rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(res.cost, cost_ref, rtol=2e-3)
+
+
+def test_mu_partial_updates_and_early_stop_match_reference(rng):
+    """Frozen W columns, frozen H rows, per-row sparsity and the conv_eps
+    early stop against the reference loop: same stopping iteration, same
+    factors."""
+    v, w0, h0 = _rand_problem(rng, m=14, n=60, r=8)
+    w_ind = np.array([True] * 5 + [False] * 3)
+    h_ind = np.array([True] * 6 + [False] * 2)
+    sparsity = np.linspace(0.1, 0.8, 8)
+    params = SNMFParams(r=8, cf="ed", sparsity=sparsity, max_iter=400,
+                        conv_eps=1e-3, init_w=w0, init_h=h0,
+                        w_update_ind=w_ind, h_update_ind=h_ind)
+    res = sparse_nmf(v, params)
+    w_ref, h_ref, _, cost_ref = numpy_sparse_nmf(
+        v, w0, h0, 2.0, sparsity[:, None], 400, w_ind=w_ind, h_ind=h_ind,
+        conv_eps=1e-3)
+    assert res.n_iter == len(cost_ref) < 400
+    np.testing.assert_allclose(res.w, w_ref, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(res.h, h_ref, rtol=2e-3, atol=2e-4)
 
 
 def test_cost_monotone_decrease(rng):
